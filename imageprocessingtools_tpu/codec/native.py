@@ -34,32 +34,12 @@ _lib: ctypes.CDLL | None = None
 _build_failed = False
 
 
-def _repo_root() -> str:
-    return os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
 def _cache_dirs() -> list[str]:
-    """Candidate .so cache dirs, most-preferred first.
+    """The .so cache dir, as a one-element list: ``IPT_CACHE_DIR`` if set,
+    else the checkout's gitignored ``.cache/``."""
+    from imageprocessingtools_tpu.utils.compile_cache import CACHE_ROOT
 
-    A source checkout (identified by its `.git`) uses the repo-local
-    `.cache/` — the dev workflow and the test suite's single shared build.
-    An installed package uses the XDG user cache instead, never writing
-    into site-packages. IPT_CACHE_DIR overrides both.
-    """
-    env = os.environ.get("IPT_CACHE_DIR")
-    if env:
-        return [env]
-    dirs = []
-    root = _repo_root()
-    if os.path.exists(os.path.join(root, ".git")):
-        dirs.append(os.path.join(root, ".cache"))
-    dirs.append(
-        os.path.join(
-            os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-            "imageprocessingtools_tpu",
-        )
-    )
-    return dirs
+    return [os.environ.get("IPT_CACHE_DIR") or CACHE_ROOT]
 
 
 def _build_so(src: str) -> str | None:

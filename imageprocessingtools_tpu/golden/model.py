@@ -1,8 +1,8 @@
-"""Pure-numpy golden model: bit-exact, TPU-free oracle for every op.
+"""Pure-numpy golden model: bit-exact, device-free oracle for every op.
 
 Each function replicates the verified semantics of the reference op —
 including its float64 accumulation ORDER where it matters (resize, rotate) —
-so CI can check the JAX/Pallas path without the C toolchain, and the
+so CI can check the JAX path without the C toolchain, and the
 differential suite can check this model against the compiled C binary.
 
 Ops beyond the reference (invert .. equalize) define this framework's

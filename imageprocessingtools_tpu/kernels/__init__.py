@@ -1,28 +1,11 @@
-"""Performance layer: fused pipelines and Pallas TPU kernels.
+"""Performance layer: the fused flagship pipeline.
 
-`fused.py` is the flagship pipeline (gray -> 5x5 Gaussian -> histogram
-equalization) in XLA-fused and Pallas variants; `pallas_core.py` holds the
-hand-tiled Pallas kernels (halo stencils, fused elementwise chain, MXU
-histogram / LUT apply); `pallas_rotate.py` is the per-tile-DMA arbitrary
-rotation kernel (int8 MXU resample, in-VMEM zone geometry) that the
-public `ops.geometry.rotate` dispatches to on TPU hardware.
+`fused.py` holds gray -> 5x5 Gaussian -> histogram equalization as one
+jitted XLA graph. No hand-written kernel lives here: one is added only
+where a measured cell shows XLA far from its bound.
 """
 
 from imageprocessingtools_tpu.kernels.fused import (  # noqa: F401
     fused_gray_gauss_histeq,
-    fused_gray_gauss_histeq_pallas,
-    fused_pipeline_pallas,
     fused_pipeline_xla,
-)
-from imageprocessingtools_tpu.kernels.pallas_rotate import (  # noqa: F401
-    rotate_blocked_pallas,
-)
-from imageprocessingtools_tpu.kernels.pallas_core import (  # noqa: F401
-    box_blur_pallas,
-    fused_elementwise_pallas,
-    gaussian_blur_pallas,
-    histogram_pallas,
-    lut_apply_pallas,
-    sharpen_pallas,
-    sobel_pallas,
 )

@@ -1,17 +1,10 @@
 """Flagship fused pipeline: grayscale -> 5x5 Gaussian -> histogram equalize.
 
-This is the benchmark pipeline from BASELINE.json (>= 1 GPix/s/chip at 4K).
-The XLA version below expresses the whole pipeline as one jitted graph so XLA
-fuses the elementwise stages into the stencil reads; the histogram is
-an MXU nibble-one-hot contraction (no scatter). `fused_pipeline_pallas`
-swaps the Gaussian stage for the tiled Pallas kernel;
-`fused_pipeline_pallas_mega` runs gray+gauss+hist in ONE VMEM pass. All
-variants are bit-identical. Since round 3 the MEGA form is the flagship:
-0.982 vs 1.341 ms same-run at 4K in bench.py's harness (the in-kernel
-slab histogram beats the XLA nibble op and the blurred image is read
-once); the round-3 tune pass (MEGA_TUNE_r03.json) then moved the LUT
-stage onto the Pallas slab kernel and block_rows to 32 — median 0.72-0.75
-ms, 14/14 interleaved hardware rounds under the previous flagship form.
+The benchmark pipeline from BASELINE.json. The whole pipeline is one jitted
+graph, so XLA fuses the elementwise stages into the stencil reads; the
+histogram is the exact nibble one-hot contraction of `ops.histogram`. Its
+time on the GPU is not measured here; `chip_smoke.py` prints it beside the
+byte bound computed from its shapes.
 """
 
 from __future__ import annotations
@@ -35,43 +28,4 @@ def fused_pipeline_xla(img: jnp.ndarray) -> jnp.ndarray:
     return apply_lut(blurred, lut)
 
 
-def fused_pipeline_pallas(img: jnp.ndarray) -> jnp.ndarray:
-    """Pallas-stencil variant of the flagship pipeline.
-
-    gray (XLA, fuses into the load) -> pallas tiled 5x5 Gaussian with row
-    halos -> histogram + LUT equalize (XLA nibble-MXU form — measured at
-    parity with the pallas kernels, both MXU-bound). Bit-identical to
-    `fused_pipeline_xla`.
-    """
-    from imageprocessingtools_tpu.kernels.pallas_core import gaussian_blur_pallas
-
-    g = grayscale(img)
-    blurred = gaussian_blur_pallas(g)
-    n_pixels = math.prod(map(int, blurred.shape))
-    lut = _equalize_lut(histogram(blurred), n_pixels)
-    return apply_lut(blurred, lut)
-
-
-def fused_pipeline_pallas_mega(img: jnp.ndarray) -> jnp.ndarray:
-    """Mega-kernel variant: gray + Gaussian + histogram in ONE Pallas pass
-    (planar loads, tile histogram accumulated across grid steps), then the
-    Pallas slab LUT-apply kernel (PROFILE_r03: 0.13 vs 0.28 ms for the XLA
-    nibble op; the swap won 14/14 interleaved hardware rounds at 0.69x the
-    XLA-LUT form, MEGA_TUNE_r03.json). Saves the gray round trip and the
-    separate histogram read vs `fused_pipeline_pallas`. Bit-identical
-    output.
-    """
-    from imageprocessingtools_tpu.kernels.pallas_core import (
-        gray_gauss_hist_pallas,
-        lut_apply_pallas,
-    )
-
-    blurred, hist = gray_gauss_hist_pallas(img)
-    n_pixels = math.prod(map(int, blurred.shape))
-    lut = _equalize_lut(hist, n_pixels)
-    return lut_apply_pallas(blurred, lut)
-
-
 fused_gray_gauss_histeq = jax.jit(fused_pipeline_xla)
-fused_gray_gauss_histeq_pallas = jax.jit(fused_pipeline_pallas)
-fused_gray_gauss_histeq_pallas_mega = jax.jit(fused_pipeline_pallas_mega)

@@ -26,10 +26,6 @@ from imageprocessingtools_tpu.ops.geometry import (  # noqa: F401
     rotate180,
     rotate270,
 )
-# rotate_fast (3-shear rotation) was removed in round 5: the blocked-MXU
-# `rotate` is ~11x faster at 4K AND keeps exact reference zone semantics,
-# so the shear path had no compensating property (deprecated in round 3,
-# deleted per the round-4 review).
 from imageprocessingtools_tpu.ops.resize import (  # noqa: F401
     resize_width,
     resize_width_exact,

@@ -12,8 +12,8 @@ precompute bit-for-bit:
   per-destination-pixel inverse map (``ppmx-edward.c:643-698``).
 
 These run once per (shape, param) on host — O(out_size * taps) — while the
-O(H*W) apply happens on device. The split is the TPU-idiomatic form of the
-reference's weights-precompute / apply structure (survey CS-2).
+O(H*W) apply happens on device: the reference's weights-precompute / apply
+structure (survey CS-2).
 """
 
 from __future__ import annotations
@@ -150,7 +150,7 @@ def plan_resize(height: int, width: int, new_width: int) -> ResizePlan:
         # = INT_MIN+2 (:535), and the first P-sized malloc to run with
         # out_size 0 rows is ind2store's (:595), whose huge size_t fails
         # -> "error: allocating ind2store", exit 255. Found by the 200-case
-        # fresh-seed campaign (FUZZ_CAMPAIGN_r03.json, seed 50022).
+        # fresh-seed campaign (tools/fuzz_campaign.py, seed 50022).
         raise ValueError("error: allocating ind2store\n")
     if (
         new_height > _MAX_RESIZE_DIM
@@ -184,7 +184,7 @@ def plan_resize(height: int, width: int, new_width: int) -> ResizePlan:
 
 
 def dense_weights(contrib: Contributions, in_size: int) -> np.ndarray:
-    """Scatter taps into a dense float64 [out, in] matrix for the MXU path.
+    """Scatter taps into a dense float64 [out, in] matrix for the matmul path.
 
     Mirror-reflected indices can repeat near boundaries; duplicate taps
     accumulate, matching the sequential tap sum.

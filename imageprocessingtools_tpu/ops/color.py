@@ -1,4 +1,4 @@
-"""Pointwise color ops (VPU path; all integer-exact unless noted).
+"""Pointwise color ops (all integer-exact unless noted).
 
 ``grayscale`` mirrors the reference op (``ppmx-edward.c:986-1003``); the rest
 are north-star extension ops whose semantics are defined by the golden model

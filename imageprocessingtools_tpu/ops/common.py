@@ -51,7 +51,7 @@ def float_stage_budget(has_resize: bool, has_float_rotation: bool) -> int:
 
     Empirically the compound cases are single-pixel-rare: the 2,080-case
     CLI fuzz campaign's first two >1 hits (seeds 950088, 960030 — one
-    pixel each at exactly 2, FUZZ_CAMPAIGN_r04.json) are reproduced as
+    pixel each at exactly 2, tools/fuzz_campaign.py) are reproduced as
     regression tests in tests/test_fuzz_differential.py, where the f64
     golden model is verified bit-exact vs the C binary on the same cases.
     """

@@ -21,12 +21,7 @@ from imageprocessingtools_tpu.ops.common import as_i32
 
 @functools.lru_cache(maxsize=32)
 def _threshold_plane(h: int, w: int) -> np.ndarray:
-    """Full uint8[h, w] threshold constant, tiled on host.
-
-    Device-side jnp.tile of the 4x4 matrix lowers to a relayout-heavy
-    broadcast/reshape on TPU (measured ~17 ms at 4K); a host-tiled constant
-    is one aligned 8 MB read instead.
-    """
+    """Full uint8[h, w] threshold constant, tiled on host."""
     reps = ((h + 3) // 4, (w + 3) // 4)
     return np.tile(_exact.BAYER_THRESHOLD_INT.astype(np.uint8), reps)[:h, :w]
 

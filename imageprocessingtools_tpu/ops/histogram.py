@@ -1,17 +1,15 @@
 """256-bin histogram, LUT application, and histogram equalization.
 
-TPU has no fast scatter OR gather, so both directions use an exact MXU
-formulation built on the value's nibbles (v = 16*hi + lo):
+- histogram: an exact matmul on the value's nibbles (v = 16*hi + lo):
+  hist2d[h, l] = <onehot(hi), onehot(lo)> — one [16, N] @ [N, 16] matmul
+  (XLA fuses the one-hot producers into it); bin b = 16*h + l, so hist2d
+  reshapes row-major to the 256 counts. EXACT: 0/1 operands in bfloat16,
+  f32 accumulation exact below 2^24 (larger pixel counts are chunked).
+- LUT apply: one gather from the 256-entry table. (The nibble one-hot
+  matmul form materializes an f32 [..., 16] product, 34 GB for a batch of
+  64 4K frames, which does not fit on one GPU.)
 
-- histogram:  hist2d[h, l] = <onehot(hi), onehot(lo)> — one [16, N] @ [N, 16]
-  matmul; bin b = 16*h + l, so hist2d reshapes row-major to the 256 counts.
-- LUT apply:  lut[v] = onehot(hi) @ LUT2D @ onehot(lo)^T — a [..., 16] x
-  [16, 16] matmul plus a masked 16-way sum (vs. an 8M-element gather, which
-  measured ~65 ms at 4K on TPU; this form is ~100x faster).
-
-Both are EXACT: one-hot values and integer LUT entries (<= 255) are exact in
-bfloat16, products are 0/1 * value, and f32 accumulation is exact below 2^24
-(larger pixel counts are chunked).
+Whether a scatter-add histogram is faster on the GPU is not measured.
 
 Equalization: lut[v] = round_half_up((cdf[v] - cdf_min) * 255 / (N - cdf_min))
 with cdf_min the first nonzero CDF value; constant images pass through. The
@@ -73,26 +71,11 @@ def histogram(img: jnp.ndarray) -> jnp.ndarray:
 
 
 def apply_lut(values: jnp.ndarray, lut: jnp.ndarray) -> jnp.ndarray:
-    """Gather-free LUT apply: uint8 values through a 256-entry integer LUT.
+    """uint8 values through a 256-entry integer LUT (one gather). Exact.
 
-    ``lut`` must hold integers in [0, 256) (uint8 or wider). Exact.
-
-    HWC inputs pay a (C, 16) minor-dims tiling tax on the one-hot
-    intermediates (~4x the 2-D gray cost at 4K instead of the linear 3x),
-    but the obvious fix loses: reshaping [H, W, 3] -> [H, 3W] first was
-    measured 1.7x SLOWER same-run on hardware (3.37 vs 1.97 ms at 4K,
-    5/5 interleaved passes — the uint8 retiling relayout costs more than
-    the tax it removes). Direct application is the best known form.
+    ``lut`` must hold integers in [0, 256) (uint8 or wider).
     """
-    v = as_i32(values)
-    hi_oh = ((v[..., None] >> 4) == _iota16()).astype(jnp.bfloat16)
-    lo_oh = ((v[..., None] & 15) == _iota16()).astype(jnp.bfloat16)
-    lut2d = lut.reshape(16, 16).astype(jnp.bfloat16)  # lut[16*h + l]
-    partial = jnp.einsum(
-        "...h,hl->...l", hi_oh, lut2d, preferred_element_type=jnp.float32
-    )
-    out = jnp.sum(partial * lo_oh.astype(jnp.float32), axis=-1)
-    return out.astype(jnp.uint8)
+    return jnp.asarray(lut).astype(jnp.uint8)[as_i32(values)]
 
 
 def _equalize_lut(hist: jnp.ndarray, n_pixels: int) -> jnp.ndarray:

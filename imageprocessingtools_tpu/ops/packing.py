@@ -2,7 +2,7 @@
 
 The reference packs bits on the host one byte at a time
 (``ppmx-edward.c:268-284``); for batched serving the packing runs on device:
-rows reshaped to groups of 8 lanes and contracted with the MSB-first weight
+rows reshaped to groups of 8 bits and contracted with the MSB-first weight
 vector [128, 64, ..., 1] — pure integer math, bit-identical to np.packbits.
 """
 

@@ -1,7 +1,7 @@
 """Small-stencil convolution ops: box blur, sharpen, Gaussian, Sobel.
 
 North-star extension ops (the reference has no convolutions). Semantics are
-integer-exact so TPU float quirks can't cause divergence:
+integer-exact so device float rounding can't cause divergence:
 
 - box 3x3:     out = floor(sum9 / 9 + 1/2)  == (2*sum9 + 9) // 18
 - gaussian 5x5: binomial [1,4,6,4,1] x 2 / 256; out = (acc + 128) // 256
@@ -9,9 +9,8 @@ integer-exact so TPU float quirks can't cause divergence:
 - sobel:       k = round_half_up(sqrt(gx^2 + gy^2)) computed exactly via a
                float estimate + integer fix-up (k^2 - k + 1 <= m <= k^2 + k)
 
-Edges use replicate padding. Implementation is shifted-window adds in int32 —
-XLA fuses the whole chain into one VPU pass; `kernels/pallas_core.py` provides
-the Pallas-tiled halo versions for the fused perf pipeline.
+Edges use replicate padding. Implementation is shifted-window adds in int32,
+which XLA fuses into one elementwise pass.
 """
 
 from __future__ import annotations

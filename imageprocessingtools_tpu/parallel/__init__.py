@@ -5,7 +5,7 @@
   communication; collectives only for the optional global histogram).
 - `spatial`: one giant image sharded over H with `shard_map` — the image
   analog of sequence parallelism; stencil ops exchange a 2-row halo with
-  `lax.ppermute` over ICI and the histogram reduces with `psum`
+  `lax.ppermute` and the histogram reduces with `psum`
   (survey §5, long-context row).
 """
 

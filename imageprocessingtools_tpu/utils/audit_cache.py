@@ -3,10 +3,10 @@
 The CLI is one process per image by design (mirroring the reference
 binary, ``ppmx-edward.c:117-191``), so in-process ``lru_cache`` on
 ``ops.geometry.rotation_decisions_safe`` never survives to the next
-invocation. With the XLA compile cache removing the 0.6-2 s recompile,
-the O(outH*outW) host audit at 4K became the dominant per-invocation
-rotation overhead. This sidecar persists the boolean verdict per
-(height, width, angle) next to the compile cache.
+invocation. With the XLA compile cache removing the recompile, the
+O(outH*outW) host audit at 4K is the remaining per-invocation rotation
+overhead. This sidecar persists the boolean verdict per
+(height, width, angle) in the checkout's ``.cache/``.
 
 Entries are keyed by a code-version tag — the content hash of the
 modules whose arithmetic the verdict depends on — so editing the

@@ -2,9 +2,8 @@
 
 The CLI runs one process per image (mirroring the reference binary,
 ``ppmx-edward.c:117-191``), so any in-process memo dies with the process.
-A sidecar store persists tiny facts — audit verdicts, paid-kernel-compile
-records — next to the XLA compile cache so the next invocation can skip
-re-deriving them.
+A sidecar store persists tiny facts — audit verdicts — in the checkout's
+``.cache/`` so the next invocation can skip re-deriving them.
 
 Entries are keyed by a caller-supplied code-version tag (typically a
 content hash of the modules the fact depends on), so editing that code
@@ -49,14 +48,9 @@ class JsonSidecar:
             in _DISABLE_VALUES
         ):
             return None
-        env = os.environ.get("IPT_CACHE_DIR")
-        if env:
-            base = env
-        else:
-            base = os.path.join(
-                os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-                "imageprocessingtools_tpu",
-            )
+        from imageprocessingtools_tpu.utils.compile_cache import CACHE_ROOT
+
+        base = os.environ.get("IPT_CACHE_DIR") or CACHE_ROOT
         return os.path.join(base, self._filename)
 
     def _load(self, path: str) -> dict:

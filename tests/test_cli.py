@@ -495,8 +495,7 @@ def test_c_atoi_huge_digit_string_no_int_limit(tmp_path, capsys):
 @pytest.mark.parametrize("seed", [980000 + i for i in range(8)])
 def test_malformed_flag_fuzz_ci_slice(ref_runner, tmp_path, seed):
     """Fixed-seed CI slice of the malformed-flag campaign class
-    (tools/fuzz_campaign.py `_malformed_args`; full 250-case fresh-seed
-    run in FUZZ_MALFORMED_r04.json). Pins the argv scan-order parity:
+    (tools/fuzz_campaign.py `_malformed_args`). Pins the argv scan-order parity:
     trailing junk, atoi wrap magnitudes, duplicate/conflict orders,
     unknown flags."""
     import sys as _sys

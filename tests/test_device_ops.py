@@ -132,16 +132,17 @@ def test_extension_pointwise_exact(shape):
     _assert_close_u8(ipt.threshold(gray, 100), golden.threshold(gray, 100))
 
 
-@pytest.mark.parametrize("shape", [(13, 17), (48, 64)])
-def test_extension_stencils_exact(shape):
+@pytest.mark.parametrize("op", ["box_blur", "sharpen", "gaussian_blur", "sobel"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_extension_stencils_exact(shape, op):
+    """Integer stencils: bit-exact on RGB and gray at every grid shape
+    (1x1, odd, non-multiple-of-8 widths, tall, wide)."""
     img = make_image(*shape, seed=6)
     gray = golden.grayscale(img)
-    _assert_close_u8(ipt.box_blur(img), golden.box_blur(img))
-    _assert_close_u8(ipt.box_blur(gray), golden.box_blur(gray))
-    _assert_close_u8(ipt.sharpen(img), golden.sharpen(img))
-    _assert_close_u8(ipt.gaussian_blur(img), golden.gaussian_blur(img))
-    _assert_close_u8(ipt.gaussian_blur(gray), golden.gaussian_blur(gray))
-    _assert_close_u8(ipt.sobel(gray), golden.sobel(gray))
+    fn, ref = getattr(ipt, op), getattr(golden, op)
+    if op != "sobel":  # Sobel's magnitude is defined on gray only
+        _assert_close_u8(fn(img), ref(img))
+    _assert_close_u8(fn(gray), ref(gray))
 
 
 def test_histogram_exact():
@@ -150,6 +151,35 @@ def test_histogram_exact():
     np.testing.assert_array_equal(
         np.asarray(ipt.histogram(gray)), golden.histogram(gray)
     )
+
+
+@pytest.mark.parametrize("shape", [(37, 300), (8, 100), (9, 128), (64, 384), (32, 128)])
+def test_histogram_odd_shapes_exact(shape):
+    """Row counts off any tile multiple and widths off 128: exact counts."""
+    gray = golden.grayscale(make_image(*shape, seed=shape[0]))
+    out = np.asarray(ipt.histogram(gray))
+    np.testing.assert_array_equal(out, golden.histogram(gray))
+    assert out.sum() == shape[0] * shape[1]
+
+
+def test_histogram_chunked_path_exact(monkeypatch):
+    """Above the f32-exact count the histogram sums chunks and removes the
+    padding it counted in bin 0; shrink the limit to reach that path."""
+    import importlib
+
+    hist_mod = importlib.import_module("imageprocessingtools_tpu.ops.histogram")
+    monkeypatch.setattr(hist_mod, "_F32_EXACT_COUNT", 64)
+    gray = golden.grayscale(make_image(13, 29, seed=3))  # 377 px, padded chunks
+    out = np.asarray(hist_mod.histogram(gray))
+    np.testing.assert_array_equal(out, golden.histogram(gray))
+
+
+@pytest.mark.parametrize("shape", [(37, 300), (8, 100), (9, 128), (16, 128)])
+def test_apply_lut_odd_shapes_exact(shape):
+    rng = np.random.default_rng(11)
+    lut = rng.integers(0, 256, 256, dtype=np.uint8)
+    gray = golden.grayscale(make_image(*shape, seed=shape[1]))
+    np.testing.assert_array_equal(np.asarray(ipt.apply_lut(gray, lut)), lut[gray])
 
 
 def test_equalize_within_budget():
@@ -207,3 +237,51 @@ def test_resize_banded_gray_2d():
     img = make_image(48, 64, seed=2)[:, :, 0]
     expected = golden.resize_width(img, 40)
     _assert_close_u8(resize_width(img, 40, banded=True), expected, tol=1)
+
+
+def _dot_precisions(jaxpr) -> list:
+    """precision params of every dot_general, nested jaxprs included."""
+    found = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            found.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            for sub in v if isinstance(v, (tuple, list)) else (v,):
+                sub = getattr(sub, "jaxpr", sub)
+                if hasattr(sub, "eqns"):
+                    found += _dot_precisions(sub)
+    return found
+
+
+@pytest.mark.parametrize("case", [
+    "resize_dense", "resize_banded", "resize_hw", "resize_spatial",
+    "rotate_blocked", "rotate_spatial",
+])
+def test_parity_dots_carry_chosen_precision(case):
+    """Every f32 dot on the resize/rotation parity paths uses the one
+    precision named for its op (the CPU computes f32 regardless, so this
+    pins what the GPU will be asked for)."""
+    import importlib
+
+    import jax
+    from jax.sharding import Mesh
+
+    from imageprocessingtools_tpu.ops import geometry
+    from imageprocessingtools_tpu.parallel import spatial
+
+    rz = importlib.import_module("imageprocessingtools_tpu.ops.resize")
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("sp",))
+    fns = {
+        "resize_dense": (lambda x: rz.resize_width(x, 10), (12, 16), "resize"),
+        "resize_banded": (lambda x: rz.resize_width(x, 10, banded=True), (12, 16), "resize"),
+        "resize_hw": (lambda x: rz.resize(x, 10, 45), (20, 30), "resize"),
+        "resize_spatial": (lambda x: spatial.resize_width_spatial(x, 48, mesh), (64, 96), "resize"),
+        "rotate_blocked": (lambda x: geometry.rotate(x, 30.0), (160, 200), "rotate"),
+        "rotate_spatial": (lambda x: spatial.rotate_spatial(x, 30.0, mesh), (128, 160), "rotate"),
+    }
+    fn, shape, op = fns[case]
+    want = rz.RESIZE_DOT_PRECISION if op == "resize" else geometry.ROTATE_DOT_PRECISION
+    if isinstance(want, jax.lax.Precision):
+        want = (want, want)
+    found = _dot_precisions(jax.make_jaxpr(fn)(make_image(*shape)).jaxpr)
+    assert found and all(p == want for p in found), found

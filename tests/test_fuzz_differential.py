@@ -162,7 +162,7 @@ def test_fuzz_vs_reference_midsize(ref_runner, tmp_path, capsys, case):
 
 # ---------------------------------------------------------------------------
 # Compound-rounding regressions: the first two maxdiff>1 float cases found
-# by the fresh-seed campaign (FUZZ_CAMPAIGN_r04.json) after 2,080 clean
+# by the fresh-seed campaign (tools/fuzz_campaign.py) after 2,080 clean
 # ones. Each is a SINGLE pixel at exactly 2 on the CPU backend: a +-1 f32
 # rounding flip on one quantized stage feeding the next stage's taps
 # through the reference's uint8 requantization (ppmx-edward.c:1102-1120

@@ -237,7 +237,7 @@ def test_constant_images(ref_runner, value):
 @pytest.mark.parametrize("shape", [(3, 3), (2, 8), (8, 2), (1, 5), (3, 17)])
 def test_rotate_arbitrary_tiny_dims(ref_runner, shape, angle):
     """H or W < 4: no interior zone exists (nearest/black only); the golden
-    model must clamp tap gathers instead of crashing (ADVICE r1, medium)."""
+    model must clamp tap gathers instead of crashing."""
     img = make_image(*shape, seed=11)
     code, _, out = ref_runner.run(_p6(img), [f"-r{angle}"])
     assert code == 0

@@ -1,10 +1,9 @@
 """Packaging metadata sanity: pyproject entry points and package data.
 
 A standalone framework must be installable; these tests pin the pieces an
-install depends on without actually running pip (the environment forbids
-installs): entry-point callables resolve, package-data files exist where the
-globs point, and the native codec falls back to a user cache when the
-repo-root cache is unwritable (the installed-package layout).
+install depends on without actually running pip: entry-point callables
+resolve, package-data files exist where the globs point, and the native
+codec builds into the directory ``IPT_CACHE_DIR`` names.
 """
 
 from __future__ import annotations
@@ -57,8 +56,7 @@ def test_version_consistent(pyproject):
 
 def test_native_codec_user_cache_fallback(tmp_path):
     """With IPT_CACHE_DIR pointing at a fresh dir, the native codec builds
-    (or cleanly falls back) without touching the repo-root cache — the
-    code path an installed read-only package takes."""
+    there (or cleanly falls back) without touching the checkout's cache."""
     code = (
         "import glob, os\n"
         "from imageprocessingtools_tpu.codec import native\n"

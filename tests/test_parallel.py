@@ -34,6 +34,41 @@ def test_fused_pipeline_single_device_matches_golden():
     assert np.abs(out.astype(int) - exp.astype(int)).max() <= 1  # equalize LUT budget
 
 
+# Widths off 128 and ragged row counts, incl. H < 8.
+FUSED_SHAPES = [
+    (64, 128), (130, 384), (7, 128), (40, 256), (50, 256), (43, 128),
+    (48, 120), (64, 200), (96, 683), (40, 500), (56, 300),
+]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_pipeline_stages_match_golden(shape):
+    """The flagship's stages vs the golden chain: blur and histogram exact,
+    the equalized output within the LUT's +-1."""
+    from imageprocessingtools_tpu.ops.color import grayscale
+    from imageprocessingtools_tpu.ops.histogram import histogram
+    from imageprocessingtools_tpu.ops.stencil import gaussian_blur
+
+    img = np.random.default_rng(shape[1]).integers(0, 256, shape + (3,), np.uint8)
+    blurred = np.asarray(gaussian_blur(grayscale(img)))
+    expected_blur = golden.gaussian_blur(golden.grayscale(img))
+    np.testing.assert_array_equal(blurred, expected_blur)
+    np.testing.assert_array_equal(np.asarray(histogram(blurred)),
+                                  golden.histogram(expected_blur))
+    out = np.asarray(fused_pipeline_xla(img))
+    assert np.abs(out.astype(int) - _golden_fused(img).astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("shape,n", [((16, 144), 8), ((24, 200), 16), ((7, 128), 8)])
+def test_batched_fused_pipeline_on_mesh(shape, n):
+    """The batch DP flagship over the 8-device mesh == per-image pipeline."""
+    imgs = np.stack([make_image(*shape, seed=s) for s in range(n)])
+    out = np.asarray(batched_fused_pipeline(imgs, mesh=default_mesh()))
+    assert out.shape == (n,) + shape
+    for i in range(n):
+        np.testing.assert_array_equal(out[i], np.asarray(fused_pipeline_xla(imgs[i])))
+
+
 def test_batch_apply_sharded_matches_single():
     imgs = np.stack([make_image(16, 24, seed=s) for s in range(8)])
     mesh = default_mesh()
@@ -215,51 +250,3 @@ def test_spatial_rotate_permutation_and_small_fallback():
     tiny = make_image(16, 24, seed=10)
     out2 = np.asarray(rotate_spatial(tiny, 30.0, mesh))
     np.testing.assert_array_equal(out2, np.asarray(ipt.rotate(tiny, 30.0)))
-
-
-def test_mega_under_shard_map_multidevice_bit_identical():
-    """Round-4 gate lift: the Pallas mega kernel runs on MULTI-DEVICE
-    meshes via shard_map over the batch axis (GSPMD cannot split the
-    opaque Pallas custom call; manual partitioning gives each device its
-    local shard). Bit-identical to the per-image XLA flagship on the
-    8-virtual-device mesh."""
-    from imageprocessingtools_tpu.kernels.fused import (
-        fused_pipeline_pallas_mega,
-    )
-    from imageprocessingtools_tpu.parallel.batch import _shard_mapped_vmap
-
-    imgs = np.stack(
-        [make_image(24, 200, seed=s) for s in range(16)])  # W % 128 != 0
-    mesh = default_mesh()
-    out = np.asarray(
-        _shard_mapped_vmap(fused_pipeline_pallas_mega, mesh, "data")(imgs))
-    for i in range(16):
-        np.testing.assert_array_equal(
-            out[i], np.asarray(fused_pipeline_xla(imgs[i])))
-
-
-def test_batched_fused_pipeline_mega_gate_multidevice(monkeypatch):
-    """With a pretend-TPU backend and a qualifying shape, a multi-device
-    mesh must route through the shard_map path and stay bit-identical."""
-    from imageprocessingtools_tpu.parallel import batch as pbatch
-
-    monkeypatch.setattr(pbatch.jax, "default_backend", lambda: "tpu")
-    # 2 MPix gate would need huge test images; patch the threshold down
-    # instead of the shape up (interpret-mode pallas at 2 MPix x 8 is
-    # minutes of CPU).
-    imgs = np.stack([make_image(16, 144, seed=s) for s in range(8)])
-    calls = []
-    real = pbatch._shard_mapped_vmap
-
-    def spy(fn, mesh, axis):
-        calls.append(fn.__name__)
-        return real(fn, mesh, axis)
-
-    monkeypatch.setattr(pbatch, "_shard_mapped_vmap", spy)
-    out = pbatch.batched_fused_pipeline(imgs, mesh=default_mesh())
-    # 16x144 is far below 2 MPix -> XLA form, no shard_map call.
-    assert calls == []
-    out_np = np.asarray(out)
-    for i in range(8):
-        np.testing.assert_array_equal(
-            out_np[i], np.asarray(fused_pipeline_xla(imgs[i])))

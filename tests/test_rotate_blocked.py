@@ -1,4 +1,4 @@
-"""Blocked MXU rotation path: parity with golden + the C zone semantics.
+"""Blocked rotation path: parity with golden + the C zone semantics.
 
 Images here are large enough that `geometry._blocked_plan` applies (the
 gather fallback covers the small shapes in the other suites). Budget: zone
@@ -34,11 +34,23 @@ def test_blocked_rotate_rgb(angle):
     _check(img, angle)
 
 
-@pytest.mark.parametrize("angle", [30, 135])
-def test_blocked_rotate_gray_2d(angle):
+@pytest.mark.parametrize("shape,angle", [((160, 200), 30), ((160, 200), 135),
+                                         ((180, 220), 61.0)])
+def test_blocked_rotate_gray_2d(shape, angle):
     rng = np.random.default_rng(7)
-    img = rng.integers(0, 256, size=(160, 200), dtype=np.uint8)
+    img = rng.integers(0, 256, size=shape, dtype=np.uint8)
     _check(img, angle)
+
+
+@pytest.mark.parametrize("angle", [30, 117.5, 245, 333.3])
+def test_blocked_rotate_fractional_and_reflex_angles(angle):
+    rng = np.random.default_rng(int(angle))
+    img = rng.integers(0, 256, size=(160, 200, 3), dtype=np.uint8)
+    _check(img, angle)
+
+
+def test_blocked_plan_too_small_for_one_block():
+    assert geometry._blocked_plan(40, 40, 30.0) is None
 
 
 def test_blocked_rotate_gradient():
@@ -78,7 +90,7 @@ def test_blocked_vs_c_binary(ref_runner):
 
 
 def test_rotation_decisions_safe_and_strict():
-    """Opt-in f64 boundary audit (ADVICE r1): safe angles use the device
+    """Opt-in f64 boundary audit: safe angles use the device
     path; an artificially huge margin forces the bit-exact fallback."""
     from imageprocessingtools_tpu.ops.geometry import (
         rotate, rotation_decisions_safe)
@@ -139,123 +151,11 @@ def test_device_rotate_tiny_dims(shape, angle):
     np.testing.assert_array_equal(out, exp)
 
 
-class TestPallasRotate:
-    """Interpret-mode parity for the Pallas per-tile-DMA rotation kernel.
-
-    On hardware (`IPT_TEST_TPU=1`) the same cases exercise the Mosaic
-    compile; the budget is identical to the XLA blocked path: zones and
-    edge/outside exact, interior +-1 LSB vs the f64 golden.
-    """
-
-    @pytest.mark.parametrize("angle", [30, 117.5, 245, 333.3])
-    def test_parity_rgb(self, angle, monkeypatch):
-        from imageprocessingtools_tpu.kernels import pallas_rotate
-
-        # The production tile height targets 4K-class images; small parity
-        # shapes exercise the same kernel at the shorter tile.
-        monkeypatch.setattr(pallas_rotate, "_TILE_G", 16)
-        rng = np.random.default_rng(int(angle))
-        img = rng.integers(0, 256, size=(160, 200, 3), dtype=np.uint8)
-        out = pallas_rotate.rotate_blocked_pallas(img, angle)
-        assert out is not None, "plan must fit at this shape"
-        out = np.asarray(out)
-        exp = golden.rotate(img, float(angle))
-        assert out.shape == exp.shape
-        rp = _exact.plan_rotation(160, 200, float(angle))
-        outside = ~(rp.interior | rp.edge)
-        diff = np.abs(out.astype(np.int64) - exp.astype(np.int64))
-        np.testing.assert_array_equal(diff[outside], 0)
-        np.testing.assert_array_equal(diff[rp.edge], 0)
-        assert diff.max() <= 1
-
-    def test_gray_2d_and_unfit_fallback(self, monkeypatch):
-        from imageprocessingtools_tpu.kernels import pallas_rotate
-
-        monkeypatch.setattr(pallas_rotate, "_TILE_G", 16)
-        rotate_blocked_pallas = pallas_rotate.rotate_blocked_pallas
-        rng = np.random.default_rng(9)
-        img = rng.integers(0, 256, size=(180, 220), dtype=np.uint8)
-        out = rotate_blocked_pallas(img, 61.0)
-        assert out is not None
-        exp = golden.rotate(img, 61.0)
-        assert np.abs(
-            np.asarray(out).astype(np.int64) - exp.astype(np.int64)
-        ).max() <= 1
-        # Too small for one source block -> caller must fall back.
-        tiny = rng.integers(0, 256, size=(40, 40, 3), dtype=np.uint8)
-        assert rotate_blocked_pallas(tiny, 30.0) is None
-
-
-def test_pallas_dispatch_is_opt_in(monkeypatch):
-    """The Pallas rotation dispatch requires IPT_PALLAS_ROTATE=1: its
-    ~1.3 ms/call win over XLA cannot amortize a minutes-scale Mosaic
-    compile for ordinary CLI/serving use, so nobody pays it by default.
-    When opted in, the kernel must actually be invoked for a qualifying
-    eager call (verified via a counting stub)."""
-    from imageprocessingtools_tpu.kernels import pallas_rotate
-
-    monkeypatch.setattr(
-        geometry.jax, "default_backend", lambda: "tpu", raising=True)
-    calls = []
-
-    def stub(image, ang, *a, **k):
-        calls.append(ang)
-        return None  # "unfit" -> falls through to the XLA path
-
-    monkeypatch.setattr(pallas_rotate, "rotate_blocked_pallas", stub)
-    rng = np.random.default_rng(4)
-    img = rng.integers(0, 256, size=(1200, 1400, 3), dtype=np.uint8)
-
-    monkeypatch.delenv("IPT_PALLAS_ROTATE", raising=False)
-    geometry.rotate(img, 33.0)
-    assert calls == []          # default: never dispatched
-
-    monkeypatch.setenv("IPT_PALLAS_ROTATE", "1")
-    geometry.rotate(img, 33.0)
-    assert calls == [33.0]      # opted in: dispatched on the first call
-
-
-def test_pallas_dispatch_falls_back_on_kernel_error(monkeypatch):
-    """An unforeseen Mosaic failure in the Pallas kernel must degrade to
-    the XLA blocked path (with a logged event), never crash the caller."""
-    from imageprocessingtools_tpu.kernels import pallas_rotate
-
-    monkeypatch.setenv("IPT_PALLAS_ROTATE", "1")
-    monkeypatch.setattr(
-        geometry.jax, "default_backend", lambda: "tpu", raising=True)
-
-    def boom(img, angle):
-        raise RuntimeError("Mosaic failed to compile TPU kernel (simulated)")
-
-    monkeypatch.setattr(pallas_rotate, "rotate_blocked_pallas", boom)
-    rng = np.random.default_rng(3)
-    img = rng.integers(0, 256, size=(1200, 1400, 3), dtype=np.uint8)
-    out = np.asarray(geometry.rotate(img, 33.0))
-    exp = golden.rotate(img, 33.0)
-    assert out.shape == exp.shape
-    assert np.abs(out.astype(np.int64) - exp.astype(np.int64)).max() <= 1
-
-
-def test_pallas_profitability_gate():
-    """The dispatch only routes narrow-block (bwp=128) plans to the Pallas
-    kernel: wide-block angles measured SLOWER than XLA (0.85x at 4K/170deg
-    — the K=256 dot is mostly zero rows), so they stay on the XLA path
-    even when opted in."""
-    from imageprocessingtools_tpu.kernels.pallas_rotate import (
-        _pallas_plan, pallas_profitable)
-
-    assert pallas_profitable(2160, 3840, 30.0)        # bwp=128 regime
-    plan170 = _pallas_plan(2160, 3840, 170.0, 16, 128)
-    assert plan170 is not None and plan170[3] == 256  # fits, but wide
-    assert not pallas_profitable(2160, 3840, 170.0)
-    assert not pallas_profitable(40, 40, 30.0)        # unfit plan
-
-
 def test_angle_sweep_all_cli_angles_small_sizes():
     """EVERY CLI-reachable resampling angle (integers 1..359 minus the
     permutation set) passes the double-f32 decision audit at the small
-    size-grid points; tools/angle_audit.py commits the same sweep at HD/4K
-    (ANGLE_AUDIT_r03.json). Together with the CLI's strict_rotation=True
+    size-grid points; tools/angle_audit.py runs the same sweep at HD/4K.
+    Together with the CLI's strict_rotation=True
     (which runs this audit per geometry and falls back to the bit-exact
     host path on failure), the parity argument covers the whole CLI domain."""
     for h, w in ((16, 16), (37, 23)):
@@ -303,121 +203,3 @@ def test_vmapped_rotation_matches_per_image(shape, angle):
         np.testing.assert_array_equal(
             out[i], np.asarray(geometry.rotate(batch[i], angle))
         )
-
-
-def test_tuned_gl_plumbing(monkeypatch, tmp_path):
-    """Tuning-table lookups: off on CPU backends; bucket keying by folded
-    angle; explicit (G, L) produce identical zone decisions (same math,
-    different tiling)."""
-    import json
-
-    import jax
-
-    if jax.default_backend() == "tpu":
-        # On hardware the committed probe table answers (if present).
-        table = geometry._load_rotation_tuning()
-        got = geometry._tuned_gl(30.0)
-        if table:
-            ent = table["buckets"].get(geometry._tuning_bucket(30.0))
-            assert got == ((ent["G"], ent["L"]) if ent else None)
-        else:
-            assert got is None
-    else:
-        # CPU backend -> no tuning regardless of table presence.
-        assert geometry._tuned_gl(30.0) is None
-
-    # Bucketing: folded-angle bands of 10 degrees.
-    assert geometry._tuning_bucket(5) == "0"
-    assert geometry._tuning_bucket(175) == "0"   # folds to 5
-    assert geometry._tuning_bucket(30) == "3"
-    assert geometry._tuning_bucket(330) == "3"   # folds to 30
-    assert geometry._tuning_bucket(89.9) == "8"
-
-    # A non-default (G, L) stays inside the +-1 budget vs the default path
-    # (identical double-f32 decisions; only the matmul tiling differs).
-    rng = np.random.default_rng(2)
-    img = rng.integers(0, 256, size=(200, 300, 3), dtype=np.uint8)
-    a = np.asarray(geometry._rotate_blocked(img, 30.0)).astype(np.int64)
-    b_out = geometry._rotate_blocked(img, 30.0, 8, 128)
-    assert b_out is not None
-    b = np.asarray(b_out).astype(np.int64)
-    assert a.shape == b.shape
-    assert np.abs(a - b).max() <= 1
-
-    # Table loader: malformed file -> None (graceful), then cache-cleared.
-    geometry._load_rotation_tuning.cache_clear()
-    monkeypatch.setattr(geometry, "_TUNING_PATH",
-                        str(tmp_path / "nope.json"))
-    assert geometry._load_rotation_tuning() is None
-    geometry._load_rotation_tuning.cache_clear()
-    p = tmp_path / "t.json"
-    p.write_text(json.dumps({"buckets": {"3": {"G": 8, "L": 128}}}))
-    monkeypatch.setattr(geometry, "_TUNING_PATH", str(p))
-    assert geometry._load_rotation_tuning()["buckets"]["3"]["G"] == 8
-    geometry._load_rotation_tuning.cache_clear()
-
-
-def test_tuned_pallas_gl_v2_schema(monkeypatch, tmp_path):
-    """Schema-v2 `pallas` sub-entries (tools/rotate_tune_rank.py --merge):
-    `_tuned_pallas_gl` reads the per-bucket kernel tile on TPU backends and
-    `pallas_profitable` honors the `pallas_ok` veto regardless of backend."""
-    import json
-
-    import jax
-
-    from imageprocessingtools_tpu.kernels import pallas_rotate as pr
-
-    p = tmp_path / "v2.json"
-    p.write_text(json.dumps({"buckets": {
-        "3": {"G": 16, "L": 128,
-              "pallas": {"G": 32, "L": 128, "vs_xla_median_ratio": 0.97,
-                         "rep_angle": 30.0},
-              "pallas_ok": True},
-        "4": {"G": 16, "L": 128,
-              "pallas": {"G": 16, "L": 128, "vs_xla_median_ratio": 1.21,
-                         "rep_angle": 135.0},
-              "pallas_ok": False},
-    }}))
-    monkeypatch.setattr(geometry, "_TUNING_PATH", str(p))
-    geometry._load_rotation_tuning.cache_clear()
-    try:
-        if jax.default_backend() == "tpu":
-            assert pr._tuned_pallas_gl(30.0) == (32, 128)
-            assert pr._tuned_pallas_gl(330.0) == (32, 128)  # folds to 30
-            assert pr._tuned_pallas_gl(15.0) is None        # bucket unprobed
-        else:
-            # Hardware probe table: never consulted on CPU backends.
-            assert pr._tuned_pallas_gl(30.0) is None
-        # The pallas_ok=False veto holds on any backend (bucket 4: 45/135).
-        assert pr.pallas_profitable(2160, 3840, 135.0) is False
-        assert pr.pallas_profitable(2160, 3840, 45.0) is False
-    finally:
-        geometry._load_rotation_tuning.cache_clear()
-
-
-@pytest.mark.parametrize("variants", [
-    frozenset({"ydot"}),
-    frozenset({"packgather"}),
-    frozenset({"ydot", "packgather"}),
-], ids=lambda v: "+".join(sorted(v)))
-def test_pallas_variant_parity(variants, monkeypatch):
-    """Round-4 formulation variants (MXU ones-dot y-reduce; packed
-    selector tables) must keep the kernel's exact budget: zones and
-    edge/outside pixels exact, interior +-1 vs the f64 golden."""
-    from imageprocessingtools_tpu.kernels import pallas_rotate
-
-    monkeypatch.setattr(pallas_rotate, "_TILE_G", 16)
-    monkeypatch.setattr(pallas_rotate, "_VARIANTS", variants)
-    rng = np.random.default_rng(41)
-    img = rng.integers(0, 256, size=(160, 200, 3), dtype=np.uint8)
-    for angle in (30.0, 245.0):
-        out = pallas_rotate.rotate_blocked_pallas(img, angle)
-        assert out is not None
-        out = np.asarray(out)
-        exp = golden.rotate(img, angle)
-        rp = _exact.plan_rotation(160, 200, angle)
-        outside = ~(rp.interior | rp.edge)
-        diff = np.abs(out.astype(np.int64) - exp.astype(np.int64))
-        np.testing.assert_array_equal(diff[outside], 0)
-        np.testing.assert_array_equal(diff[rp.edge], 0)
-        assert diff.max() <= 1

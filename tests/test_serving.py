@@ -105,7 +105,7 @@ def test_process_files_sharded_mesh(tmp_path):
 
 def test_process_files_mesh_non_divisible(tmp_path):
     """A shape bucket whose chunk doesn't divide the mesh size pads up to a
-    multiple of the device count and slices back (ADVICE r1, medium)."""
+    multiple of the device count and slices back."""
     from imageprocessingtools_tpu.parallel.batch import default_mesh
 
     paths = _write_inputs(tmp_path, [(8, 16)] * 5)  # 5 files, 8 devices

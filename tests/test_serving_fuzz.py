@@ -1,7 +1,7 @@
 """Fixed-seed CI slice of the serving-layer fuzz (tools/serving_fuzz.py).
 
-The full campaign (SERVING_FUZZ_r03.json: 60 fresh-seed rounds, 1113
-files) is a one-off evidence run; this keeps a small deterministic slice
+The full campaign (tools/serving_fuzz.py, fresh seeds) is a one-off
+evidence run; this keeps a small deterministic slice
 in CI so regressions in the serving machinery (bucketing, chunk overlap,
 fan-out, skip-bad, resume) surface on every run. Seeds are fixed and
 disjoint from the campaign's 300000+ range.
@@ -27,8 +27,8 @@ def test_serving_fuzz_round(seed):
 
 @pytest.mark.parametrize("seed", [7101, 7102])
 def test_serving_fuzz_spatial_round(seed):
-    """CI slice of the round-5 spatial fuzz class (SERVING_FUZZ_r05.json:
-    24 fresh-seed rounds at base 1100000, zero failures): serve --spatial /
+    """CI slice of the spatial fuzz class (campaign seeds from 1100000):
+    serve --spatial /
     process_file_spatial over random shapes incl. submesh fallback,
     spatial presets incl. P4, fused pipelines, and skip-bad."""
     from serving_fuzz import run_spatial_round

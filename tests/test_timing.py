@@ -1,9 +1,8 @@
 """Semantics of the device_loop_rate harness feedback paths.
 
-The harness's numbers are hardware measurements (validated on the chip in
-FEEDBACK_VALIDATION_r03.json); what CI can and should pin down is that the
-jitted fori_loop really executes the body with the documented feedback
-composition — i.e. that a loop of n iterations produces exactly the carry
+The harness's numbers are device measurements; what CI can and should
+pin down is that the jitted fori_loop really executes the body with the
+documented feedback composition — i.e. that a loop of n iterations produces exactly the carry
 an eager replay of body+feedback produces, for every feedback branch.
 A broken branch (shape mismatch, dead-code'd body, wrong dtype) would
 surface here as a value divergence or a trace error.

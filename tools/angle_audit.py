@@ -12,10 +12,10 @@ This sweep turns the double-f32 parity argument from a fuzz result into a
 verified statement over the ENTIRE CLI-reachable angle domain x a size grid
 (tiny, odd, HD, 4K). Sizes outside the grid are covered operationally: the
 CLI runs with strict_rotation=True, which executes this same audit per
-geometry (cached, ~0.5 s at 4K) and falls back to the bit-exact host path
+geometry (cached) and falls back to the bit-exact host path
 on any failure; serving audits each shape bucket the same way.
 
-    python tools/angle_audit.py > ANGLE_AUDIT_r03.json
+    python tools/angle_audit.py > angle_audit.json
 """
 
 from __future__ import annotations

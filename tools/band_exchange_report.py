@@ -1,17 +1,17 @@
 """Per-device wire evidence for the small-angle rotation BAND EXCHANGE.
 
-Round-5 feature (VERDICT item 7): at small folded angles
+At small folded angles
 `parallel.spatial.rotate_spatial` ppermutes only the m input shards each
 device's output row-groups actually read, instead of all-gathering the
 whole image. This tool compiles BOTH forms for the same geometries on the
-8-virtual-device CPU mesh and records, MULTICHIP_HLO-style:
+8-virtual-device CPU mesh and records, like tools/sharding_report.py:
 
 - the optimized-HLO collective inventory of each form (collective-permute
   vs all-gather),
-- the per-device ICI byte counts (band: m shards; gather: n-1 shards),
+- the per-device byte counts (band: m shards; gather: n-1 shards),
 - a bit-identity probe of band vs all-gather vs the single-device op.
 
-    python tools/band_exchange_report.py > MULTICHIP_BAND_r05.json
+    python tools/band_exchange_report.py > band_exchange.json
 """
 
 from __future__ import annotations

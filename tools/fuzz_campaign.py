@@ -6,7 +6,7 @@ byte-for-byte; float combos under the STAGE-AWARE budget of
 ops/common.py:float_stage_budget — +-1 per quantized f32 stage, compounding
 across the reference's uint8 requantization points — with P4 skipped), but
 with FRESH seeds and a much larger case count, run as a one-off evidence
-campaign (FUZZ_CAMPAIGN_r03.json). CPU backend for the in-process CLI.
+campaign. CPU backend for the in-process CLI.
 
     python tools/fuzz_campaign.py [n_small] [n_mid] [n_thin] [seed_base]
                                   [n_malformed]

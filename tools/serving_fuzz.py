@@ -18,7 +18,7 @@ against the single-image path for the same file:
   - a resume round: delete a random subset of outputs, re-run through the
     serve CLI with --resume, and require exactly the deleted ones redone.
 
-Round 5 adds SPATIAL rounds (`run_spatial_round`, VERDICT #5): every 4th
+SPATIAL rounds (`run_spatial_round`): every 4th
 round (or all of them with --spatial) drives `serve --spatial` /
 `process_file_spatial` over random giant-ish shapes — H not divisible by
 the mesh (divisor-submesh fallback), spatial presets incl. the P4 one,
@@ -27,8 +27,7 @@ exchange/all-gather rotation), the "fused" pipeline, and a skip-bad
 probe — each output differentially checked against the single-device
 path.
 
-    python tools/serving_fuzz.py [n_rounds] [seed_base] [--spatial] \
-        > SERVING_FUZZ_r05.json
+    python tools/serving_fuzz.py [n_rounds] [seed_base] [--spatial] > report.json
 """
 
 from __future__ import annotations
@@ -42,9 +41,9 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  # fuzz_campaign
 
-# CPU campaign tool — but tests import run_round too, and an IPT_TEST_TPU=1
-# suite run must keep whatever backend the conftest chose.
-if os.environ.get("IPT_TEST_TPU") != "1":
+# CPU campaign tool — but tests import run_round too, and a GPU suite run
+# (JAX_PLATFORMS=cuda) must keep whatever backend the conftest chose.
+if "cuda" not in os.environ.get("JAX_PLATFORMS", ""):
     os.environ["JAX_PLATFORMS"] = "cpu"
     _flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in _flags:
@@ -245,8 +244,8 @@ def run_round(seed: int, workdir: str) -> tuple[dict, list[str]]:
 
 
 def run_spatial_round(seed: int, workdir: str) -> tuple[dict, list[str]]:
-    """Randomized differential fuzz of the SPATIAL surface (round 5,
-    VERDICT #5): `process_file_spatial` / `serve --spatial` — giant-ish
+    """Randomized differential fuzz of the SPATIAL surface:
+    `process_file_spatial` / `serve --spatial` — giant-ish
     shapes incl. H not divisible by the mesh (divisor-submesh fallback),
     spatial presets incl. the P4 one, reference configs with resample
     stages (halo resize + band-exchange/all-gather rotation), the "fused"

@@ -11,10 +11,10 @@ OPTIMIZED HLO:
 
 This complements `__graft_entry__.dryrun_multichip` (which executes one
 step): here the artifact records WHAT the compiled program does on the
-wire, so the ICI communication pattern is reviewable without hardware.
+wire, so the communication pattern is reviewable without hardware.
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        python tools/sharding_report.py > MULTICHIP_HLO_r02.json
+        python tools/sharding_report.py > sharding_report.json
 """
 
 from __future__ import annotations
@@ -105,11 +105,11 @@ def main():
         "per_device_input_shard": str(simg.addressable_shards[0].data.shape),
         "collectives": _inventory(scompiled),
         "note": "height-sharded single image: collective-permute = the "
-                "2-row Gaussian halo exchange over ICI (up + down), "
+                "2-row Gaussian halo exchange (up + down), "
                 "all-reduce = the psum'd global 256-bin histogram.",
     }
 
-    # 3. GSPMD: the reference resize (dense MXU matmuls) H-sharded over the
+    # 3. GSPMD: the reference resize (dense matmuls) H-sharded over the
     # mesh — the partitioner must insert the boundary comms for the
     # [outH, H] weight contraction itself.
     from imageprocessingtools_tpu.ops.resize import resize_width
@@ -174,7 +174,7 @@ def main():
         "note": "shard_map halo-exchange resize (survey §5 deliverable): "
                 "each shard ppermutes only the rows its taps overhang, "
                 "then applies its own [outH/n, local+halo] weight block "
-                "locally on the MXU. Versus program 3's full-output "
+                "locally. Versus program 3's full-output "
                 "all-reduce this moves O(taps*W) instead of O(outH*W) "
                 "bytes per device.",
     }
