@@ -34,12 +34,12 @@ _lib: ctypes.CDLL | None = None
 _build_failed = False
 
 
-def _cache_dirs() -> list[str]:
-    """The .so cache dir, as a one-element list: ``IPT_CACHE_DIR`` if set,
-    else the checkout's gitignored ``.cache/``."""
+def _cache_dir() -> str:
+    """The .so cache dir: ``IPT_CACHE_DIR`` if set, else the checkout's
+    gitignored ``.cache/``."""
     from imageprocessingtools_tpu.utils.compile_cache import CACHE_ROOT
 
-    return [os.environ.get("IPT_CACHE_DIR") or CACHE_ROOT]
+    return os.environ.get("IPT_CACHE_DIR") or CACHE_ROOT
 
 
 def _build_so(src: str) -> str | None:
@@ -51,22 +51,21 @@ def _build_so(src: str) -> str | None:
 
     with open(src, "rb") as f:
         tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    for cache in _cache_dirs():
-        so_path = os.path.join(cache, f"libppmcodec-{tag}.so")
-        try:
-            if not os.path.exists(so_path):
-                os.makedirs(cache, exist_ok=True)
-                tmp = so_path + f".tmp{os.getpid()}"
-                subprocess.run(
-                    ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", tmp, src, "-pthread"],
-                    check=True,
-                    capture_output=True,
-                )
-                os.replace(tmp, so_path)  # atomic vs concurrent builders
-            return so_path
-        except (OSError, subprocess.CalledProcessError):
-            continue
-    return None
+    cache = _cache_dir()
+    so_path = os.path.join(cache, f"libppmcodec-{tag}.so")
+    try:
+        if not os.path.exists(so_path):
+            os.makedirs(cache, exist_ok=True)
+            tmp = so_path + f".tmp{os.getpid()}"
+            subprocess.run(
+                ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", tmp, src, "-pthread"],
+                check=True,
+                capture_output=True,
+            )
+            os.replace(tmp, so_path)  # atomic vs concurrent builders
+        return so_path
+    except (OSError, subprocess.CalledProcessError):
+        return None
 
 
 def _load() -> ctypes.CDLL | None:

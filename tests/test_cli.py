@@ -412,7 +412,7 @@ def test_resize_height_wrap_mod32_parity(ref_runner, tmp_path, capsys):
     assert (our_code, capsys.readouterr().out) == (0, "")
     with open(p + ".out", "rb") as f:
         ours = f.read()
-    # The golden f64 host path is bit-exact, stronger than the MXU +-1 budget.
+    # The golden f64 host path is bit-exact, stronger than the matmul path's +-1 budget.
     assert ours == ref_out
 
     # wrap-to-exactly-0 -> B7's surface on both sides

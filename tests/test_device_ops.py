@@ -90,7 +90,7 @@ def test_resize_hw_extension():
 
 def test_resize_hw_extension_host_fallback(monkeypatch):
     """Extreme-aspect route: the f64 host tap path (triggered by shrinking
-    the dense limit) agrees with the dense MXU path within the +-1 budget
+    the dense limit) agrees with the dense matmul path within the +-1 budget
     and exactly equals the direct f64 contributions composition."""
     import importlib
 

@@ -113,7 +113,7 @@ def test_fuzz_vs_reference(ref_runner, tmp_path, capsys, case):
 @pytest.mark.parametrize("case", range(12))
 def test_fuzz_vs_reference_midsize(ref_runner, tmp_path, capsys, case):
     """Same differential at 120-320 px: these sizes route rotation through
-    the blocked MXU path (and resize through full-size weight matrices),
+    the blocked matmul path (and resize through full-size weight matrices),
     unlike the small-shape fuzz above which exercises the fallbacks."""
     rng = np.random.default_rng(7000 + case)
     h = int(rng.integers(120, 320))

@@ -60,8 +60,8 @@ def test_native_codec_user_cache_fallback(tmp_path):
     code = (
         "import glob, os\n"
         "from imageprocessingtools_tpu.codec import native\n"
-        "dirs = native._cache_dirs()\n"
-        "assert dirs == [os.environ['IPT_CACHE_DIR']], dirs\n"
+        "cache = native._cache_dir()\n"
+        "assert cache == os.environ['IPT_CACHE_DIR'], cache\n"
         "lib = native._load()\n"
         "assert lib is None or glob.glob(\n"
         "    os.path.join(os.environ['IPT_CACHE_DIR'], 'libppmcodec-*.so'))\n"
